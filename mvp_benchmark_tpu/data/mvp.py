@@ -11,7 +11,7 @@ Mirrors the reference datasets:
   ships precomputed ``rotated_src/rotated_tgt/transforms/rot_level``;
   category filtering via the ``cat_labels`` key.
 
-TPU-native additions: static-shape batching (final batch padded + masked so
+Additions: static-shape batching (final batch padded + masked so
 jit compiles one program), per-host sharding hooks for multi-host data
 parallelism, and a synthetic in-memory fallback so the full pipeline runs
 without the MVP download (tests, benchmarks, CI).

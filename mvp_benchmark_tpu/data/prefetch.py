@@ -1,4 +1,4 @@
-"""Host->device prefetch: overlap batch assembly/augmentation with TPU steps.
+"""Host->device prefetch: overlap batch assembly/augmentation with device steps.
 
 The reference relies on torch DataLoader workers for this (its configs ship
 ``workers: 0``, i.e. fully synchronous). Here a background thread prepares

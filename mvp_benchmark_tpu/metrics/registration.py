@@ -14,7 +14,8 @@ import math
 import jax.numpy as jnp
 from jax import lax
 
-# Small 3x3/4x4 pose math must not round through bf16 (the TPU default).
+# Small 3x3/4x4 pose math must not round through bf16 or TF32 (what a
+# default-precision f32 matmul may use on an accelerator).
 _HI = lax.Precision.HIGHEST
 
 

@@ -12,7 +12,7 @@ import math
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 
 from mvp_benchmark_tpu import ops
 from mvp_benchmark_tpu.models import layers
@@ -29,10 +29,10 @@ def edge_preserve_sampling(
 
     knn_idx: optional precomputed SELF-kNN of ``points`` (B, N, k') with
     k' >= pk. The sampled centers are a subset of ``points``, so their
-    pk-NN rows are exactly rows of the self-kNN table (same kernel, same
-    packed-key tie-breaking, neighbours in ascending-distance order —
+    pk-NN rows are exactly rows of the self-kNN table (same top-k, same
+    tie-breaking, neighbours in ascending-distance order —
     slicing the first pk of a k'-NN list IS the pk-NN list). Passing it
-    replaces this call's full (M, N) kNN kernel with an O(M*k') row gather.
+    replaces this call's full (M, N) kNN with an O(M*k') row gather.
     """
     N = points.shape[1]
     p_idx = ops.furthest_point_sample(points, num_samples)
@@ -45,8 +45,6 @@ def edge_preserve_sampling(
         )
     else:
         _, pn_idx = ops.knn_points(point_output, points, pk)
-    # fused gather+max: the (B, M, pk, C) neighbourhood tensor stays in
-    # kernel registers (ops.group_max)
     neighbor = ops.group_max(features, pn_idx)
     center = ops.gather_points(features, p_idx)
     net = jnp.concatenate([center, neighbor], axis=-1)
@@ -123,12 +121,10 @@ def get_repulsion_loss(
     pred: jnp.ndarray, nsample: int = 20, radius: float = 0.07
 ) -> jnp.ndarray:
     """Repulsion loss (model_utils.py:181-198). pred: (B, N, 3)."""
-    from jax import lax
-
     idx = ops.knn_indices(pred, nsample)
     grouped = ops.grouping_operation(pred, idx) - pred[:, :, None, :]
     dist_square = jnp.sum(grouped**2, axis=-1)           # (B, N, nsample)
-    neg_top, _ = lax.top_k(-dist_square, 5)
+    neg_top, _ = ops.top_k(-dist_square, 5)
     dist_square = -neg_top[:, :, 1:]                     # drop self
     dist_square = jnp.maximum(dist_square, 1e-12)
     dist = jnp.sqrt(dist_square)

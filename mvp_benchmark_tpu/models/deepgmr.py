@@ -1,4 +1,4 @@
-"""DeepGMR registration model (TPU-native rebuild).
+"""DeepGMR registration model.
 
 Reference: ``registration/models/deepgmr.py`` — optional RRI features
 (:54-95, a torch+numpy hybrid there; fully vectorized jnp here), PointNet
@@ -14,7 +14,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 from jax import lax
 
 from mvp_benchmark_tpu import metrics, ops
@@ -27,7 +27,7 @@ def _diamond_key(s: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
     """Pseudo-angle in [0, 4): strictly monotone in atan2(s, c) mod 2pi.
 
     Piecewise-rational per quadrant — orders angles WITHOUT transcendentals
-    (the atan2/mod pair costs ~10x this on the VPU). (0, 0) maps to 0,
+    (cheaper than an atan2/mod pair per element). (0, 0) maps to 0,
     matching IEEE atan2(0, 0) == 0."""
     zero = (jnp.abs(s) + jnp.abs(c)) == 0.0
     sd = jnp.where(zero, 1.0, 0.0)  # keep denominators non-zero under where
@@ -52,16 +52,11 @@ def get_rri_features(pts: jnp.ndarray, k: int) -> jnp.ndarray:
     is 0 = smallest). Ordering runs on the transcendental-free diamond key
     (monotone in the angle); the exact atan2/mod evaluates only at the one
     selected (B, S, k) pair — not all (B, S, k, k) pairs — and lax.top_k's
-    per-row sort becomes two masked min-reductions. Measured round 5:
-    the full-plane atan2+mod+top_k block was 56 ms/step of DeepGMR's 111.
+    per-row sort becomes two masked min-reductions.
     """
     pts = lax.stop_gradient(pts)
     idx = ops.knn_indices(pts, k + 1)[..., 1:]            # exclude self
-    # "hilo": exact (hi+lo bf16 split, ~1e-6 of fp32) one-hot MXU gather —
-    # the q values feed the cancellation-prone T_q = q - dot*p, so the
-    # plain bf16 table is not acceptable here, but the row-gather
-    # formulation was 16.9 ms/step of DeepGMR's 52 (PERF.md round 5).
-    q = ops.grouping_operation(pts, idx, approx="hilo")   # (B, S, k, 3)
+    q = ops.grouping_operation(pts, idx)                  # (B, S, k, 3)
     p = jnp.broadcast_to(pts[:, :, None, :], q.shape)
 
     rp = jnp.linalg.norm(p, axis=-1, keepdims=True)
@@ -83,10 +78,9 @@ def get_rri_features(pts: jnp.ndarray, k: int) -> jnp.ndarray:
     i1 = jnp.argmin(key, axis=-1)
     cols = jnp.arange(key.shape[-1])
     key2 = jnp.where(cols == i1[..., None], jnp.inf, key)
-    # Select (sin, cos) at the second-smallest index with masked reductions
-    # — take_along_axis on the minor axis is a row-at-a-time XLA gather
-    # (measured 80 ms/step here); an iota-compare mask + reduce fuses into
-    # one VPU pass per plane.
+    # Select (sin, cos) at the second-smallest index with masked reductions:
+    # an iota-compare mask + reduce fuses into one elementwise pass per
+    # plane instead of a gather on the minor axis.
     mask2 = cols == jnp.argmin(key2, axis=-1)[..., None]   # (B, S, k, k)
     s_sel = jnp.sum(jnp.where(mask2, sin_psi, 0.0), axis=-1, keepdims=True)
     c_sel = jnp.sum(jnp.where(mask2, cos_psi, 0.0), axis=-1, keepdims=True)

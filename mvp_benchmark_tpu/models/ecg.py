@@ -1,4 +1,4 @@
-"""ECG completion model (TPU-native rebuild).
+"""ECG completion model.
 
 Reference: ``completion/models/ecg.py`` — PCN encoder + edge-aware dense
 graph-conv hierarchical encoder-decoder (``EF_encoder`` with DGCNN
@@ -13,7 +13,7 @@ from typing import Optional, Sequence
 
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 
 from mvp_benchmark_tpu import ops
 from mvp_benchmark_tpu.metrics import calc_cd, calc_emd
@@ -31,9 +31,7 @@ class DenseConv(nn.Module):
     DenseCat over the running list of parts (identical parameters to Dense on
     the materialized concat), and because max over neighbours commutes with
     channel concatenation the parts are only concatenated after the k-max —
-    the reference's (B, N, k, C+i*growth) intermediates never exist. This
-    also avoids the pathologically slow XLA TPU compile path for
-    concat->dot chains.
+    the reference's (B, N, k, C+i*growth) intermediates never exist.
     """
 
     growth_rate: int = 64

@@ -4,7 +4,7 @@ The reference IDAM's ``use_fpfh`` path (reference
 ``registration/model_utils.py:129-148``) hops to Open3D on the CPU per batch
 element: normal estimation (hybrid radius/max_nn search) followed by
 ``compute_fpfh_feature`` -> a 33-dim histogram descriptor per point. That is
-a per-sample KD-tree pipeline — the TPU-native rebuild computes the same
+a per-sample KD-tree pipeline — this rebuild computes the same
 descriptor batched on device from dense distance matrices (fixed 2048-point
 clouds make the O(N^2) matrix cheap, SURVEY.md §5 "keep everything dense").
 
@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from mvp_benchmark_tpu.ops.jnp_ref import square_distance
+from mvp_benchmark_tpu.ops.jnp_ref import square_distance, top_k
 
 
 def _fix_sign(n: jnp.ndarray) -> jnp.ndarray:
@@ -58,7 +58,7 @@ def estimate_normals(
     B, N, _ = xyz.shape
     k = min(max_nn, N)
     d2 = square_distance(xyz, xyz)
-    neg, idx = lax.top_k(-d2, k)                          # self first
+    neg, idx = top_k(-d2, k)                              # self first
     valid = (-neg) <= radius * radius                     # (B, N, k)
     pts = jax.vmap(lambda p, i: p[i])(xyz, idx)           # (B, N, k, 3)
     w = valid[..., None].astype(jnp.float32)
@@ -126,7 +126,7 @@ def fpfh_features(
 
     k = min(max_nn_feature, N)
     d2 = square_distance(xyz, xyz)
-    neg, idx = lax.top_k(-d2, k)                          # self first
+    neg, idx = top_k(-d2, k)                              # self first
     nd2 = -neg                                            # (B, N, k) squared
     valid = (nd2 <= radius_feature * radius_feature) & (nd2 > 0)
 

@@ -1,4 +1,4 @@
-"""IDAM registration model (TPU-native rebuild).
+"""IDAM registration model.
 
 Reference: ``registration/models/idam.py`` — GNN edge-conv embedding on a
 fixed 12-NN graph (:115-149), significance scores, hard point elimination to
@@ -18,11 +18,12 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 from jax import lax
 
 from mvp_benchmark_tpu import metrics, ops
 from mvp_benchmark_tpu.models import layers
+from mvp_benchmark_tpu.parallel.mesh import per_shard
 
 _HI = lax.Precision.HIGHEST
 
@@ -51,11 +52,8 @@ class Propagate(nn.Module):
     The first 1x1 conv commutes with the gather/subtraction:
     Dense(x_j - x_i) == gather(Dense(x)) - Dense(x), so the projection runs
     on N points (not N*k) and only emb-dim features are gathered. The
-    edge build (one-hot MXU gather - center, bf16) AND the
-    BN -> relu -> Dense -> max_k body run as fused Pallas passes
-    (ops.gnn_propagate): the (B, k, N, emb) edge tensor is emitted once by
-    the kernel, its d_p backward scatter happens in-register, and none of
-    the chain's intermediates touch HBM.
+    edge build (gather - center, bf16) and the BN -> relu -> Dense -> max_k
+    body are ops.gnn_propagate.
     """
 
     emb_dims: int
@@ -75,7 +73,7 @@ class Propagate(nn.Module):
         if train and batch_stats is not None and (
             self.is_mutable_collection("batch_stats")
         ):
-            # flax convention: ra = 0.9 * ra + 0.1 * batch stat (torch
+            # ra = 0.9 * ra + 0.1 * batch stat (torch
             # BatchNorm momentum 0.1).
             ra_mean.value = 0.9 * ra_mean.value + 0.1 * batch_stats[0]
             ra_var.value = 0.9 * ra_var.value + 0.1 * batch_stats[1]
@@ -201,15 +199,17 @@ class Model(nn.Module):
                 return jnp.concatenate([pos, neg])
 
             keys = jax.random.split(rng, B)
-            src_idx = jax.vmap(sample)(keys, pos_probs, neg_probs)
+            # per_shard: the sampler's top-k would be gathered whole
+            # onto every device of a data-parallel mesh.
+            src_idx = per_shard(jax.vmap(sample), keys, pos_probs, neg_probs)
             src_idx = lax.stop_gradient(src_idx)
             tgt_idx = jnp.take_along_axis(min_idx, src_idx, axis=1)
             match_labels = jnp.take_along_axis(
                 match_labels_full, src_idx, axis=1
             )
         else:
-            _, src_idx = lax.top_k(src_sig_score, num_preserved)
-            _, tgt_idx = lax.top_k(tgt_sig_score, num_preserved)
+            _, src_idx = ops.top_k(src_sig_score, num_preserved)
+            _, tgt_idx = ops.top_k(tgt_sig_score, num_preserved)
 
         src = _batch_take(src, src_idx)
         src_embedding = _batch_take(src_embedding, src_idx)
@@ -225,17 +225,9 @@ class Model(nn.Module):
 
         # The whole (B, M, M, 32) similarity stack — DenseCat over the
         # virtual [src_emb_i, tgt_emb_j, dist_ij, dir_ij] concat, BN, relu,
-        # Dense, {max_j head, Dense->BN->relu->Dense(1) logits} — runs as
-        # one fused Pallas kernel chain (ops.sim_mlp): the reference
-        # materializes the (B, M, M, 2*emb+4) stack and every intermediate
-        # in HBM (idam.py:267-279; ~2 GB/iter at reference scale), and even
-        # the virtual-concat XLA formulation used through round 2 paid ~6
-        # HBM round-trips per iteration on the (B, M, M, 32) tensors. The
-        # fused chain recomputes edges in VMEM and emits only the (B, M, M)
-        # logits, the (B, M, 32) max-pool, and the BN statistics.
-        # (Measured, PERF.md round 3: the earlier bf16-intermediates idea
-        # REGRESSED 301 -> 575 ms/step on cast traffic; the fused kernel is
-        # the real fix.)
+        # Dense, {max_j head, Dense->BN->relu->Dense(1) logits} — is
+        # ops.sim_mlp; the reference materializes the (B, M, M, 2*emb+4)
+        # stack (idam.py:267-279).
         emb = self.emb_dims
         SC = 32
         for i in range(self.num_iters):
@@ -265,7 +257,7 @@ class Model(nn.Module):
                 self.is_mutable_collection("batch_stats")
             ):
                 st1, st2 = batch_stats
-                # flax convention: ra = 0.9 * ra + 0.1 * batch stat
+                # ra = 0.9 * ra + 0.1 * batch stat
                 # (torch BatchNorm default momentum 0.1).
                 for v, new in zip(ra, (st1[0], st1[1], st2[0], st2[1])):
                     v.value = 0.9 * v.value + 0.1 * new

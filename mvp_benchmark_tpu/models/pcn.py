@@ -1,4 +1,4 @@
-"""PCN completion model (TPU-native rebuild).
+"""PCN completion model.
 
 Reference: ``completion/models/pcn.py`` — PointNet-style encoder with two
 max-pools (:13-30), FC coarse decoder + folding-grid upsampling (:33-71),
@@ -11,7 +11,7 @@ import math
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 
 from mvp_benchmark_tpu.metrics import calc_cd, calc_emd
 from mvp_benchmark_tpu.models import layers

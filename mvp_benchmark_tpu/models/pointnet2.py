@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import jax.numpy as jnp
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 
 from mvp_benchmark_tpu import ops
 from mvp_benchmark_tpu.models import layers

@@ -1,4 +1,4 @@
-"""VRCNet completion model (TPU-native rebuild) — the flagship/perf config.
+"""VRCNet completion model — the flagship/perf config.
 
 Reference: ``completion/models/vrcnet.py`` — dual-path probabilistic
 completion: PCN encoder -> posterior/prior nets (``Linear_ResBlock`` :95-105)
@@ -20,11 +20,11 @@ from typing import Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 from jax import lax
 
 from mvp_benchmark_tpu import ops
-from mvp_benchmark_tpu.metrics import calc_cd, calc_cd_multi, calc_emd
+from mvp_benchmark_tpu.metrics import calc_cd, calc_emd
 from mvp_benchmark_tpu.models import common, layers
 
 
@@ -64,17 +64,14 @@ class SAModule(nn.Module):
         # 1x1 convs commute with the neighbour gather: project to the small
         # rel/mid widths FIRST, then gather ONE concatenated (rel+mid)-dim
         # tensor — identical math/params to Dense(grouping(h)) with
-        # (rel+mid)/C of the gather/scatter HBM traffic and a single gather's
-        # row overhead (the gathers dominate the profile otherwise). The
-        # three heads (x1-rel, proj-rel, proj-mid) run as ONE concatenated
-        # GEMM (layers.MultiDense): separate (rows, C) @ (C, 4|16) passes
-        # use 4-16 of 128 MXU output lanes each.
+        # (rel+mid)/C of the gather/scatter traffic and a single gather's
+        # row overhead. The three heads (x1-rel, proj-rel, proj-mid) run as
+        # ONE concatenated GEMM (layers.MultiDense).
         y = layers.MultiDense((rel, rel, mid))(h)          # (B, N, 2rel+mid)
         x1 = y[..., :rel]                                  # (B, N, rel)
         proj = y[..., rel:]                                # (B, N, rel+mid)
         # w-MLP parameters (reference vrcnet.py:36-41: Dense(ms, no bias),
-        # Dense(k*ms)) owned directly so the fused TPU kernel and the XLA
-        # fallback share them.
+        # Dense(k*ms)).
         W1 = self.param("w_mlp1", layers.torch_linear_init,
                         ((1 + k) * rel, ms))
         W2 = self.param("w_mlp2", layers.torch_linear_init, (ms, k * ms))
@@ -88,24 +85,15 @@ class SAModule(nn.Module):
         )
 
         B, N = h.shape[:2]
-        if ops.sa_attention_supported(N):
-            # Fused Pallas block: per-slot one-hot gathers from the
-            # VMEM-resident projection table + w-MLP + weighted reduction;
-            # only (B, N, mid) reaches HBM (ops/pallas_kernels.sa_attention).
-            idx_jm = jnp.swapaxes(idx, 1, 2)               # (B, k, N)
-            out = ops.sa_attention(
-                proj, x1, idx_jm, W1, W2, b2, rel, mid, share
-            )
-        else:
-            pn = ops.grouping_operation(proj, idx)         # (B, N, k, C)
-            x2 = pn[..., :rel].reshape(B, N, k * rel)
-            x3 = pn[..., rel:]
-            w = nn.relu(jnp.concatenate([x1, x2], axis=-1))
-            u = nn.relu(jnp.dot(w, W1, preferred_element_type=jnp.float32))
-            w = jnp.dot(u, W2, preferred_element_type=jnp.float32) + b2
-            w = w.reshape(B, N, k, ms)
-            w = jnp.tile(w, (1, 1, 1, share))
-            out = jnp.sum(w * x3, axis=2)                  # (B, N, mid)
+        pn = ops.grouping_operation(proj, idx)             # (B, N, k, C)
+        x2 = pn[..., :rel].reshape(B, N, k * rel)
+        x3 = pn[..., rel:]
+        w = nn.relu(jnp.concatenate([x1, x2], axis=-1))
+        u = nn.relu(jnp.dot(w, W1, preferred_element_type=jnp.float32))
+        w = jnp.dot(u, W2, preferred_element_type=jnp.float32) + b2
+        w = w.reshape(B, N, k, ms)
+        w = jnp.tile(w, (1, 1, 1, share))
+        out = jnp.sum(w * x3, axis=2)                      # (B, N, mid)
         out = nn.relu(out)
         out = layers.TorchDense(self.out_planes)(out)
         return out + identity
@@ -352,7 +340,7 @@ class MSAPSKNDecoder(nn.Module):
             scores = layers.TorchDense(8)(nn.relu(scores))
             scores = layers.TorchDense(1)(nn.relu(scores))
             scores = jax.nn.softplus(scores).squeeze(-1)
-            _, idx_scores = lax.top_k(scores, self.num_coarse)
+            _, idx_scores = ops.top_k(scores, self.num_coarse)
             coarse = ops.gather_points(coarse_fps, idx_scores.astype(jnp.int32))
             coarse_features = ops.gather_points(
                 coarse_features, idx_scores.astype(jnp.int32)
@@ -478,7 +466,7 @@ class Model(nn.Module):
                 # fps(gt, N) with N == |gt| selects EVERY point, so the
                 # reference's resampling is a permutation; the encoder is
                 # permutation-invariant and all losses are CD, so skip the
-                # N-step greedy FPS + gather (~5 ms/step at bench scale).
+                # N-step greedy FPS + gather.
                 # (Only differs if gt contains exactly-duplicated points,
                 # where the CUDA FPS would emit repeats.)
                 y = gt
@@ -554,10 +542,6 @@ class Model(nn.Module):
 
             if self.train_loss != "cd":
                 raise NotImplementedError("Only CD is supported")
-            # Measured (tools/bench_chamfer.py, v5e): batching the 4 terms
-            # into one sentinel-padded chamfer launch (calc_cd_multi) ran
-            # 25.1 vs 22.4 ms — the padding + gt-tile + stacking copies cost
-            # more than the saved launches. Separate calls stay.
             loss1, _ = calc_cd(coarse_raw, gt)
             loss2, _ = calc_cd(coarse_high, gt)
             loss3, _ = calc_cd(coarse, gt)

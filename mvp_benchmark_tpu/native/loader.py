@@ -18,6 +18,10 @@ from typing import Optional, Tuple
 import numpy as np
 
 _ABI_VERSION = 1
+# Build output inside the checkout (gitignored).
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".build")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -28,12 +32,8 @@ def _source_path() -> str:
 
 
 def _build_dir() -> str:
-    d = os.environ.get(
-        "MVP_TPU_BUILD_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "mvp_benchmark_tpu"),
-    )
-    os.makedirs(d, exist_ok=True)
-    return d
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    return BUILD_DIR
 
 
 def _compile() -> Optional[ctypes.CDLL]:

@@ -1,4 +1,4 @@
-"""Geometry op library (TPU-native replacement for the reference CUDA ops).
+"""Geometry op library (replaces the reference CUDA ops).
 
 Public API (channels-last):
 
@@ -6,54 +6,40 @@ Public API (channels-last):
 - ``furthest_point_sample``, ``furthest_point_sample_with_dist``
 - ``ball_query``, ``knn_indices``, ``knn_points``, ``knn_query``
 - ``three_nn``, ``three_nn_upsampling``, ``three_interpolate``
-- ``gather_points``, ``grouping_operation``
+- ``gather_points``, ``grouping_operation``, ``group_max``
+- ``edge_mlp``, ``sim_mlp``, ``gnn_edge``, ``gnn_propagate`` (per-edge MLPs)
 - ``square_distance``
 
-Dispatch policy: ops with fused Pallas TPU kernels (``pallas_kernels``) are
-used on TPU backends; everywhere else (CPU tests, multi-device CPU meshes) the
-pure-jnp golden implementations in ``jnp_ref`` run. Both share the exact
-semantics of the reference CUDA extensions (see jnp_ref docstrings for
-file:line citations).
+Dispatch policy (``dispatch``): chamfer and FPS run the Triton kernels of
+``gpu_kernels`` on the GPU; everything else, and everything on the CPU, is
+the plain ``jnp_ref`` formulation. Both share the semantics of the
+reference CUDA extensions (see jnp_ref docstrings for file:line citations).
 """
 
 from mvp_benchmark_tpu.ops.jnp_ref import (
-    ball_query as ball_query_ref,
-    chamfer_distance as chamfer_distance_ref,
-    emd_auction as emd_auction_ref,
-    furthest_point_sample as furthest_point_sample_ref,
-    furthest_point_sample_with_dist,
-    gather_points as gather_points_ref,
-    grouping_operation as grouping_operation_ref,
-    knn_indices as knn_indices_ref,
-    knn_points as knn_points_ref,
-    knn_query,
-    square_distance,
-    three_interpolate as three_interpolate_ref,
-    three_nn as three_nn_ref,
-    three_nn_upsampling as three_nn_upsampling_ref,
-)
-
-from mvp_benchmark_tpu.ops.dispatch import (
     ball_query,
-    emd_auction,
-    chamfer_distance,
-    furthest_point_sample,
-    gather_points,
-    group_max,
-    grouping_operation,
-    grouping_split,
-    knn_indices,
-    knn_points,
     edge_mlp,
-    edge_mlp_supported,
-    sa_attention,
-    sa_attention_supported,
+    emd_auction,
+    furthest_point_sample_with_dist,
+    gather_points,
     gnn_edge,
     gnn_propagate,
+    group_max,
+    grouping_operation,
+    knn_indices,
+    knn_points,
+    knn_query,
     sim_mlp,
+    square_distance,
     three_interpolate,
     three_nn,
     three_nn_upsampling,
+    top_k,
+)
+
+from mvp_benchmark_tpu.ops.dispatch import (
+    chamfer_distance,
+    furthest_point_sample,
 )
 
 from mvp_benchmark_tpu.ops.grouping import (
@@ -64,31 +50,25 @@ from mvp_benchmark_tpu.ops.grouping import (
 
 __all__ = [
     "ball_query",
-    "ball_query_ref",
     "chamfer_distance",
-    "chamfer_distance_ref",
+    "edge_mlp",
     "emd_auction",
     "furthest_point_sample",
-    "furthest_point_sample_ref",
     "furthest_point_sample_with_dist",
     "gather_points",
+    "gnn_edge",
+    "gnn_propagate",
     "group_max",
     "grouping_operation",
-    "grouping_split",
     "knn_indices",
     "knn_points",
     "knn_query",
-    "edge_mlp",
-    "edge_mlp_supported",
-    "sa_attention",
-    "gnn_edge",
-    "gnn_propagate",
     "sim_mlp",
-    "sa_attention_supported",
     "square_distance",
     "three_interpolate",
     "three_nn",
     "three_nn_upsampling",
+    "top_k",
     "QueryAndGroup",
     "GroupAll",
     "PointsSampler",

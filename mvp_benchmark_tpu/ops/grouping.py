@@ -14,9 +14,9 @@ from typing import List, Optional, Sequence, Tuple
 import jax.numpy as jnp
 
 from mvp_benchmark_tpu.ops import jnp_ref
-from mvp_benchmark_tpu.ops.dispatch import (
+from mvp_benchmark_tpu.ops.dispatch import furthest_point_sample
+from mvp_benchmark_tpu.ops.jnp_ref import (
     ball_query,
-    furthest_point_sample,
     grouping_operation,
     knn_points,
 )

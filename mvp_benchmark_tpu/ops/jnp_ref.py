@@ -1,9 +1,9 @@
-"""Pure-jnp golden reference implementations of the geometry op library.
+"""Plain jnp implementations of the geometry op library.
 
-These are the numerical contract for the Pallas TPU kernels in this package —
-every fused kernel is validated against these functions (the same strategy the
-reference repo uses in ``utils/metrics/CD/unit_test.py``, which checks its CUDA
-chamfer against a dense pure-python implementation).
+XLA compiles these for every op that has no hand-written kernel, and they
+are the numerical contract for the kernels in ``gpu_kernels`` (the same
+strategy the reference repo uses in ``utils/metrics/CD/unit_test.py``,
+which checks its CUDA chamfer against a dense pure-python implementation).
 
 Semantics mirror the reference CUDA ops exactly:
 
@@ -22,7 +22,7 @@ Semantics mirror the reference CUDA ops exactly:
                   ``utils/mm3d_pn2/ops/{knn,interpolate,gather_points,group_points}``.
 
 All point clouds are channels-last ``(B, N, 3)`` and features channels-last
-``(B, N, C)`` — the TPU-friendly layout (lane dim = feature dim). The
+``(B, N, C)``, so 1x1 convolutions are plain GEMMs over the feature dim. The
 reference's channels-first wrappers live in ``compat`` shims where needed.
 """
 
@@ -35,6 +35,18 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from mvp_benchmark_tpu.parallel.mesh import per_shard
+
+
+def top_k(x: jnp.ndarray, k: int) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """``lax.top_k`` over the last axis, run per shard of the leading axis
+    under a data-parallel mesh (``parallel.mesh.per_shard``): XLA's
+    partitioner has no rule for top-k and would gather the operand whole
+    onto every device."""
+    if x.ndim < 2:
+        return lax.top_k(x, k)
+    return per_shard(lambda v: lax.top_k(v, k), x)
+
 
 # ---------------------------------------------------------------------------
 # Pairwise distances
@@ -46,14 +58,15 @@ def square_distance(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
     a: (..., N, D), b: (..., M, D) -> (..., N, M).
 
-    Uses the |a|^2 + |b|^2 - 2 a.b expansion (one MXU matmul) and clamps at 0
+    Uses the |a|^2 + |b|^2 - 2 a.b expansion (one matmul) and clamps at 0
     so downstream ``sqrt`` never sees negative round-off (the CUDA kernels
     compute exact difference-of-coordinates sums, which are non-negative).
     """
     a2 = jnp.sum(a * a, axis=-1, keepdims=True)          # (..., N, 1)
     b2 = jnp.sum(b * b, axis=-1, keepdims=True)          # (..., M, 1)
-    # precision=HIGHEST: the TPU default rounds matmul inputs to bf16, which
-    # would destroy the 1e-4 distance-parity bar.
+    # precision=HIGHEST: at default precision an f32 matmul may run as TF32
+    # (about three decimal digits), which would break the 1e-4
+    # distance-parity bar.
     inner = jnp.einsum(
         "...nd,...md->...nm",
         a,
@@ -111,7 +124,7 @@ def knn_indices(points: jnp.ndarray, k: int) -> jnp.ndarray:
     distance matrix.
     """
     d = square_distance(points, points)
-    _, idx = lax.top_k(-d, min(k, points.shape[-2]))
+    _, idx = top_k(-d, min(k, points.shape[-2]))
     return idx.astype(jnp.int32)
 
 
@@ -130,7 +143,7 @@ def knn_points(
     topk values of ``-dist``). The distance output is differentiable.
     """
     d = square_distance(query, points)
-    neg_d, idx = lax.top_k(-d, min(k, points.shape[-2]))
+    neg_d, idx = top_k(-d, min(k, points.shape[-2]))
     return neg_d, idx.astype(jnp.int32)
 
 
@@ -163,7 +176,7 @@ def three_nn(
     ``target`` (upsampling always hits exact-zero distances).
     """
     d = square_distance(target, source)
-    neg_d, idx = lax.top_k(-d, 3)
+    neg_d, idx = top_k(-d, 3)
     dist = jnp.sqrt(jnp.maximum(-neg_d, 0.0))
     return lax.stop_gradient(dist), idx.astype(jnp.int32)
 
@@ -228,6 +241,11 @@ def grouping_operation(features: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     ``utils/mm3d_pn2/ops/group_points/group_points.py:166-221``).
     """
     return jax.vmap(lambda f, i: f[i])(features, idx.astype(jnp.int32))
+
+
+def group_max(features: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """Max-pool of grouped features: (B, N, C), (B, M, K) -> (B, M, C)."""
+    return jnp.max(grouping_operation(features, idx), axis=2)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +346,7 @@ def ball_query(
     # Key: valid points keep their index; invalid points get index + N (so all
     # valid keys sort first, both groups in ascending index order).
     key = jnp.where(valid, n_iota, n_iota + N)
-    neg_topk, _ = lax.top_k(-key, nsample)          # smallest keys first
+    neg_topk, _ = top_k(-key, nsample)          # smallest keys first
     slots = -neg_topk                                # (B, M, nsample)
     hit = slots < N
     first = jnp.where(hit[..., :1], slots[..., :1], 0)
@@ -347,9 +365,8 @@ def _emd_body(carry, D, eps, n, m, last):
     unass = assignment < 0
 
     benefit = 3.0 - D - price[None, :]                     # (n, m)
-    # Best + second-best via two max sweeps: lax.top_k lowers to a full sort
-    # over the lane dimension on TPU (the same pathology the kNN kernel
-    # avoids); argmax/max passes keep each round O(nm) streaming.
+    # Best + second-best via two max sweeps keep each round one O(nm)
+    # streaming pass instead of a top-k.
     best_i = jnp.argmax(benefit, axis=1).astype(jnp.int32)
     best = jnp.max(benefit, axis=1)
     col = lax.broadcasted_iota(jnp.int32, benefit.shape, 1)
@@ -488,3 +505,108 @@ def _emd_bwd(eps, iters, res, g):
 
 
 emd_auction.defvjp(_emd_fwd, _emd_bwd)
+
+
+# ---------------------------------------------------------------------------
+# Per-edge MLP blocks (DCP DGCNN, IDAM similarity stack and GNN)
+# ---------------------------------------------------------------------------
+#
+# Matmul operands are bf16 with f32 accumulation; BatchNorm statistics and
+# the normalisation are f32. In train mode the statistics are batch
+# statistics over every axis but the channel axis, returned as (2, C)
+# [mean, biased var] for the caller's running averages; in eval mode the
+# given running statistics are used and None is returned in their place.
+
+_BN_EPS = 1e-5
+
+
+def _bf16_dot(x, w):
+    return jnp.dot(
+        x.reshape(-1, x.shape[-1]).astype(jnp.bfloat16),
+        w.astype(jnp.bfloat16), preferred_element_type=jnp.float32,
+    ).reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def _bn_relu(h, gamma, beta, mean, var, train: bool):
+    """BatchNorm over all but the last axis, then relu. Returns
+    (out, stats) with stats = [mean, biased var] (2, C)."""
+    f32 = jnp.float32
+    if train:
+        axes = tuple(range(h.ndim - 1))
+        mean = jnp.mean(h, axis=axes)
+        var = jnp.maximum(jnp.mean(h * h, axis=axes) - mean * mean, 0.0)
+    else:
+        mean, var = mean.astype(f32), var.astype(f32)
+    hhat = (h - mean) * lax.rsqrt(var + _BN_EPS)
+    out = jnp.maximum(hhat * gamma.astype(f32) + beta.astype(f32), 0.0)
+    return out, lax.stop_gradient(jnp.stack([mean, var]))
+
+
+def edge_mlp(a1, Ws, gammas, betas, means, variances, train: bool):
+    """DCP's DGCNN chain on edge features a1 (B, k, N, C): per layer
+    Dense (no bias) -> BN -> relu, each layer max-pooled over k
+    (reference dcp.py:269-301). Returns (xs, stats): xs one (B, N, ch)
+    per layer, stats a tuple of (2, ch) in train mode, else None."""
+    a = a1.astype(jnp.float32)
+    xs, stats = [], []
+    for l, W in enumerate(Ws):
+        h = _bf16_dot(a, W)
+        a, st = _bn_relu(h, gammas[l], betas[l], means[l], variances[l],
+                         train)
+        stats.append(st)
+        xs.append(jnp.max(a, axis=1))
+    return tuple(xs), (tuple(stats) if train else None)
+
+
+def sim_mlp(src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4,
+            g1, be1, g2, be2, mean1, var1, mean2, var2, train: bool):
+    """IDAM's similarity-matrix stack (reference idam.py:267-279) over all
+    (src_i, tgt_j) pairs: concat([emb_i, emb_j, dist_ij, dir_ij]) ->
+    Dense -> BN -> relu -> Dense (-> max over j: weights head) -> Dense ->
+    BN -> relu -> Dense(1) (similarity logits, clipped to +-20).
+
+    The first Dense is applied to each part of the virtual concat
+    separately, so the (B, M, M, 2 emb + 4) input is never built.
+    Positions are not differentiated. Returns (sim (B, M, M), wmax
+    (B, M, C), stats) with stats = (st1, st2) in train mode, else None.
+    """
+    f32 = jnp.float32
+    emb = semb.shape[-1]
+    src = lax.stop_gradient(src.astype(f32))
+    tgt = lax.stop_gradient(tgt.astype(f32))
+    sp = _bf16_dot(semb, Wcat[:emb])
+    tp = _bf16_dot(temb, Wcat[emb:2 * emb])
+    w0 = Wcat[2 * emb].astype(f32)
+    wxyz = Wcat[2 * emb + 1:2 * emb + 4]
+
+    diff = src[:, :, None, :] - tgt[:, None, :, :]
+    dist = jnp.sqrt(jnp.sum(diff * diff, axis=-1, keepdims=True))
+    dproj = dist * w0 + _bf16_dot(diff / (dist + 1e-8), wxyz)
+    h0 = sp[:, :, None, :] + tp[:, None, :, :] + dproj
+
+    x1, st1 = _bn_relu(h0, g1, be1, mean1, var1, train)
+    h1 = _bf16_dot(x1, W2) + b2.astype(f32)
+    wmax = jnp.max(h1, axis=2)
+    x2, st2 = _bn_relu(_bf16_dot(h1, W3), g2, be2, mean2, var2, train)
+    simr = jnp.sum(x2 * W4.reshape(-1).astype(f32), axis=-1)
+    sim = jnp.clip(simr + b4.reshape(()), -20.0, 20.0)
+    return sim, wmax, ((st1, st2) if train else None)
+
+
+def gnn_edge(a1, W, b, gamma, beta, mean, var, train: bool):
+    """IDAM Propagate edge block (reference idam.py:115-128) on edge
+    features a1 (B, k, N, C): BN -> relu -> Dense(+bias) -> max over k.
+    Returns (x (B, N, C), stats (2, C) in train mode, else None)."""
+    x1, st = _bn_relu(a1.astype(jnp.float32), gamma, beta, mean, var, train)
+    h = _bf16_dot(x1, W) + b.astype(jnp.float32)
+    return jnp.max(h, axis=1), (st if train else None)
+
+
+def gnn_propagate(p, idx, W, b, gamma, beta, mean, var, train: bool):
+    """One IDAM Propagate layer from projected features p (B, N, C) and the
+    neighbour graph idx (B, N, k): edges gather(p, idx) - p_center, stored
+    bf16 in the (B, k, N, C) layout, then ``gnn_edge``."""
+    g = grouping_operation(p.astype(jnp.float32), idx)
+    a1 = (g - p.astype(jnp.float32)[:, :, None, :]).astype(jnp.bfloat16)
+    return gnn_edge(jnp.swapaxes(a1, 1, 2), W, b, gamma, beta, mean, var,
+                    train)

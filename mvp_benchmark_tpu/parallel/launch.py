@@ -1,10 +1,10 @@
 """Multi-host launch helper.
 
 The reference launches single-node SLURM tasks (``completion/run_train.sh``);
-the TPU-native equivalent is one process per host with
-``jax.distributed.initialize`` rendezvous and per-host dataset shards. This
-module centralizes that so the CLIs work unchanged on a single chip, a
-single host with N chips, or a multi-host slice.
+here one process drives all of a host's GPUs, and several hosts rendezvous
+through ``jax.distributed.initialize`` with per-host dataset shards. This
+module centralizes that so the CLIs work unchanged on one GPU, one host with
+N GPUs, or several hosts.
 """
 
 from __future__ import annotations
@@ -20,13 +20,16 @@ logger = logging.getLogger(__name__)
 def maybe_initialize_distributed() -> None:
     """Initialize multi-host JAX when a coordinator is configured.
 
-    Set ``JAX_COORDINATOR_ADDRESS`` (+ optional ``JAX_NUM_PROCESSES``/
-    ``JAX_PROCESS_ID``) in the per-host environment; on Cloud TPU VMs with
-    metadata available, ``jax.distributed.initialize()`` auto-discovers.
-    No-op when unset (single-host).
+    Set ``JAX_COORDINATOR_ADDRESS`` (``host:port``), ``JAX_NUM_PROCESSES``
+    and ``JAX_PROCESS_ID`` in each process's environment. No-op when the
+    address is unset (single-host).
     """
     if os.environ.get("JAX_COORDINATOR_ADDRESS"):
-        jax.distributed.initialize()
+        jax.distributed.initialize(
+            coordinator_address=os.environ["JAX_COORDINATOR_ADDRESS"],
+            num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
+            process_id=int(os.environ["JAX_PROCESS_ID"]),
+        )
         logger.info(
             "distributed: process %d/%d, %d local / %d global devices",
             jax.process_index(), jax.process_count(),

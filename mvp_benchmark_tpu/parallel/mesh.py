@@ -1,20 +1,22 @@
 """Device mesh + sharding helpers for data-parallel training.
 
 The reference's only parallelism is single-node ``torch.nn.DataParallel``
-(replicate module, scatter batch — ``completion/train.py:49``). The TPU-native
-equivalent: a 1-axis ``jax.sharding.Mesh`` over all local devices (ICI), the
+(replicate module, scatter batch — ``completion/train.py:49``). The JAX
+equivalent: a 1-axis ``jax.sharding.Mesh`` over all local devices, the
 global batch sharded along ``data``, parameters/optimizer state replicated.
-Under ``jax.jit`` XLA inserts the gradient all-reduce (psum over ICI) and
+Under ``jax.jit`` XLA inserts the gradient all-reduce (NCCL) and
 computes BatchNorm batch statistics globally — i.e. the NaiveSyncBatchNorm
 behavior of ``utils/mm3d_pn2/ops/norm.py`` for free.
 
 Multi-host: ``jax.distributed.initialize`` + per-host dataset sharding via
 ``BatchSpec(num_shards=jax.process_count(), shard_id=jax.process_index())``;
-the same mesh spans all hosts (DCN between slices).
+the same mesh spans all hosts.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 from typing import Dict, Iterable, Optional
 
@@ -37,6 +39,49 @@ def _cached_default_mesh() -> Mesh:
 
 def get_mesh(mesh: Optional[Mesh] = None) -> Mesh:
     return mesh if mesh is not None else _cached_default_mesh()
+
+
+_TRACE_MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
+    "trace_mesh", default=None)
+
+
+@contextlib.contextmanager
+def trace_under(mesh: Optional[Mesh]):
+    """Within this context ``per_shard`` splits over ``mesh``'s data axis.
+
+    Enter it inside the function that ``jax.jit`` traces (as the engine's
+    train step does): jit does not key its cache on this context. No-op
+    for None.
+    """
+    token = _TRACE_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _TRACE_MESH.reset(token)
+
+
+def per_shard(fn, *args):
+    """``fn(*args)``, run on each shard of the leading axis when the mesh of
+    ``trace_under`` splits the data axis over several devices; otherwise on
+    the whole arrays.
+
+    ``fn`` must treat the rows of the leading axis independently; every
+    output is split along it too. For ops XLA's partitioner has no rule for
+    (a ``pallas_call``, ``lax.top_k``), which it would otherwise gather
+    whole onto every device and run there on the global batch.
+    """
+    mesh = _TRACE_MESH.get()
+    if (mesh is None or DATA_AXIS not in mesh.axis_names
+            # already inside a shard_map over the data axis
+            or DATA_AXIS in jax.sharding.get_abstract_mesh().manual_axes):
+        return fn(*args)
+    n = mesh.shape[DATA_AXIS]
+    if n == 1 or any(x.shape[0] % n for x in args):
+        return fn(*args)
+    spec = P(DATA_AXIS)
+    # check_vma=False: a pallas_call's outputs carry no varying-axes type.
+    return jax.shard_map(fn, mesh=mesh, in_specs=spec, out_specs=spec,
+                         check_vma=False)(*args)
 
 
 def _multiprocess() -> bool:

@@ -4,8 +4,8 @@ The reference's only distributed-communication component is
 ``NaiveSyncBatchNorm1d/2d`` (``utils/mm3d_pn2/ops/norm.py:9-133``): an
 all_gather + sum of per-worker (mean, meansqr) over ``torch.distributed``.
 
-On TPU under ``jax.jit`` with the batch sharded over the mesh, plain
-``flax.linen.BatchNorm`` reductions ARE global (XLA inserts the psums), so
+Under ``jax.jit`` with the batch sharded over the mesh, plain
+``models.nn.BatchNorm`` reductions ARE global (XLA inserts the psums), so
 ``models.layers.BatchNorm`` is already sync-BN — strictly better than the
 reference's DataParallel per-GPU statistics. This module provides the
 explicit ``axis_name`` variant for code running under ``shard_map``/``vmap``
@@ -14,7 +14,7 @@ where the batch axis is a named mapped axis rather than a sharded one.
 
 from __future__ import annotations
 
-from flax import linen as nn
+from mvp_benchmark_tpu.models import nn
 
 
 class SyncBatchNorm(nn.Module):
@@ -22,7 +22,7 @@ class SyncBatchNorm(nn.Module):
 
     Use inside shard_map/pmap-style code: pmean of (mean, mean-square) over
     ``axis_name``, exactly the NaiveSyncBatchNorm reduction. torch-default
-    hyperparameters (momentum 0.1 -> flax 0.9, eps 1e-5).
+    hyperparameters (torch momentum 0.1 -> 0.9 here, eps 1e-5).
     """
 
     axis_name: str = "data"

@@ -29,10 +29,8 @@ def build_optimizer(cfg: Config) -> optax.GradientTransformation:
         wd = float(cfg.weight_decay or 0.0)
 
         def make(learning_rate):
-            # optax.flatten (moments on one raveled vector) was measured and
-            # REJECTED: step time unchanged (152.5 vs 152.1 ms — the ~1400
-            # copy/slice tail ops overlap the Pallas kernels), while the
-            # flattened opt_state breaks checkpoint-shape compatibility.
+            # Per-leaf moments (not optax.flatten): the flattened opt_state
+            # would break checkpoint-shape compatibility.
             if wd:
                 return optax.adamw(
                     learning_rate, b1=betas[0], b2=betas[1], weight_decay=wd

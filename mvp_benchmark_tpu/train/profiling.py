@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Optional
 
@@ -21,6 +22,17 @@ def trace(log_dir: Optional[str]):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def card_name_and_power() -> str:
+    """The first GPU's name and power limit as ``nvidia-smi`` reports them;
+    a card set below its maximum limit runs slower under load, so every
+    device number is kept beside this line."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 class StepTimer:

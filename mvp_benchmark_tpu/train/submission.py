@@ -7,12 +7,13 @@ from __future__ import annotations
 import os
 import zipfile
 
-import h5py
 import numpy as np
 
 
 def write_submission(log_dir: str, results: np.ndarray) -> str:
     """Write results.h5 (+ submission.zip) into log_dir; returns zip path."""
+    import h5py  # only the test jobs write HDF5; training never needs it
+
     h5_path = os.path.join(log_dir, "results.h5")
     with h5py.File(h5_path, "w") as f:
         f.create_dataset("results", data=results)

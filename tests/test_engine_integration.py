@@ -74,6 +74,8 @@ def test_registration_train_val_split_meters(tmp_path):
     out = engine.train_registration(cfg, str(tmp_path),
                                     data_dir=str(tmp_path / "nodata"),
                                     max_steps_per_epoch=3)
+    assert len(out["history"]["train_loss"]) == int(cfg.nepoch)
+    assert all(np.isfinite(v) for v in out["history"]["train_loss"])
     val = out["history"]["val"][-1]
     assert set(val) == {"RotE", "transE", "MSE", "RMSE", "recall"}
     assert 0.0 <= val["recall"] <= 1.0

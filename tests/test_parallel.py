@@ -76,7 +76,7 @@ def test_batchnorm_stats_are_global(eight_devices):
     NaiveSyncBatchNorm contract), not per-shard."""
     from mvp_benchmark_tpu.models import layers as L
 
-    import flax.linen as nn
+    from mvp_benchmark_tpu.models import nn
 
     class BNNet(nn.Module):
         @nn.compact

@@ -148,3 +148,92 @@ class TestDatasets:
         t = b["transform"][:, :3, 3]
         pred = np.einsum("bij,bnj->bni", R, b["src"]) + t[:, None, :]
         np.testing.assert_allclose(pred, b["tgt"], atol=1e-5)
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SHIPPED_CFGS = sorted(
+    os.path.relpath(os.path.join(d, f), _REPO)
+    for d in (os.path.join(_REPO, "completion", "cfgs"),
+              os.path.join(_REPO, "registration", "cfgs"))
+    for f in os.listdir(d) if f.endswith(".yaml"))
+
+
+class TestConfigParser:
+    def test_every_shipped_cfg_is_listed(self):
+        assert len(_SHIPPED_CFGS) == 12
+
+    @pytest.mark.parametrize("rel", _SHIPPED_CFGS)
+    def test_shipped_cfg_parses_like_yaml(self, rel):
+        """Same keys, values and types as a YAML library gives."""
+        from mvp_benchmark_tpu.train.config import load_config
+
+        yaml = pytest.importorskip("yaml")
+        path = os.path.join(_REPO, rel)
+        with open(path) as f:
+            want = yaml.safe_load(f)
+        got = dict(load_config(path))
+        assert got == want
+        for k, v in want.items():
+            assert type(got[k]) is type(v), k
+
+    def test_scalars_comments_and_nesting(self):
+        from mvp_benchmark_tpu.train.config import parse_yaml_mapping
+
+        text = ("# header\nlr: 1.e-6  # trailing\nname: 'a: b' # c\n"
+                "q: \"16\"\nflag: True\noff: False\nnone: null\nempty:\n"
+                "betas: 0.9, 0.999\nouter:\n  inner:\n    k: 3\n  j: -2\n"
+                "last: .5\n")
+        assert parse_yaml_mapping(text) == {
+            "lr": 1e-6, "name": "a: b", "q": "16", "flag": True,
+            "off": False, "none": None, "empty": None,
+            "betas": "0.9, 0.999", "outer": {"inner": {"k": 3}, "j": -2},
+            "last": 0.5}
+
+    @pytest.mark.parametrize("text", ["a: 1\n  b: 2\n", "a:\n  b: 1\n c: 2\n",
+                                      "- item\n", "x: 'open\n"])
+    def test_rejects_what_it_does_not_read(self, text):
+        from mvp_benchmark_tpu.train.config import parse_yaml_mapping
+
+        with pytest.raises(ValueError):
+            parse_yaml_mapping(text)
+
+
+def test_main_path_needs_no_flax_yaml_or_h5py():
+    """The train/test entry modules import with flax, PyYAML and h5py
+    blocked (h5py is imported only when a results file is written)."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for m in ('flax', 'yaml', 'h5py'): sys.modules[m] = None\n"
+            "import mvp_benchmark_tpu.train.engine, "
+            "mvp_benchmark_tpu.train.submission, mvp_benchmark_tpu.models\n")
+    subprocess.run([sys.executable, "-c", code], cwd=_REPO, check=True,
+                   env=dict(os.environ, JAX_PLATFORMS="cpu"))
+
+
+class TestCompileCache:
+    def _cache_dir(self, env):
+        import subprocess
+        import sys
+
+        code = ("import mvp_benchmark_tpu, jax; "
+                "print(jax.config.jax_compilation_cache_dir)")
+        out = subprocess.run([sys.executable, "-c", code], env=env, cwd=_REPO,
+                             capture_output=True, text=True, check=True)
+        return out.stdout.strip().splitlines()[-1]
+
+    def test_env_dir_wins(self, tmp_path):
+        env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=str(tmp_path))
+        assert self._cache_dir(env) == str(tmp_path)
+
+    def test_default_is_fixed_dir_in_checkout(self):
+        import mvp_benchmark_tpu
+
+        env = {k: v for k, v in os.environ.items()
+               if k != "JAX_COMPILATION_CACHE_DIR"}
+        got = self._cache_dir(env)
+        assert got == mvp_benchmark_tpu.DEFAULT_CACHE_DIR
+        assert got == os.path.join(_REPO, ".jax_cache")
+        with open(os.path.join(_REPO, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()

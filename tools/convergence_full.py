@@ -1,11 +1,9 @@
 #!/usr/bin/env python
-"""Full-scale bf16-vs-fp32 convergence evidence (VERDICT r3 task 3).
+"""Full-scale bf16-vs-fp32 convergence evidence.
 
 Trains VRCNet at the HEADLINE shapes — n=2048, bs=32, the bench layer config —
-for a few hundred optimizer steps per dtype on the real chip, same seed and
-data sequence, validating every few epochs through the production engine
-loop. The round-2/3 convergence evidence ran at num_points=128/bs=4; this is
-the run at the shapes the bench headline actually claims.
+for a few hundred optimizer steps per dtype on the GPU, same seed and data
+sequence, validating every few epochs through the production engine loop.
 
 Synthetic blob data (the loaders' dataset-free fallback) — the reference's
 own operational validation is training-loss descent + val CD trajectories

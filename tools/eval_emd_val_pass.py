@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Truncated `eval_emd: True` val epoch on-chip (VERDICT r3 task 7).
+"""Truncated `eval_emd: True` val epoch on the GPU.
 
 Runs a REAL 3-batch completion val pass with eval_emd enabled — PCN at
 n=2048, bs=32, the reference eval protocol (eps=0.004, 3000 auction rounds,
